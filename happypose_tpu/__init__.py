@@ -1,12 +1,12 @@
-"""happypose_tpu — a TPU-native 6D object-pose estimation framework.
+"""happypose_tpu — a 6D object-pose estimation framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design with the capabilities of
-agimus-project/happypose (CosyPose + MegaPose):
+A ground-up JAX/XLA re-design with the capabilities of
+agimus-project/happypose (CosyPose + MegaPose), for NVIDIA GPUs:
 
 - ``lib3d``:      SE(3)/rotation/camera/crop math as pure JAX ops.
-- ``ops``:        Pallas rasterizer, ROI-align, segment/group ops.
+- ``ops``:        rasterizer (XLA + Triton kernel), ROI-align, segment ops.
 - ``meshes``:     mesh IO + padded, device-shardable mesh database.
-- ``models``:     Flax backbones + render-and-compare pose predictors.
+- ``models``:     layer set, backbones, render-and-compare pose predictors.
 - ``inference``:  CosyPose / MegaPose estimation pipelines (jitted).
 - ``multiview``:  on-device RANSAC matching + Levenberg-Marquardt BA.
 - ``training``:   disentangled pose losses, pjit data-parallel trainer.
@@ -16,7 +16,7 @@ agimus-project/happypose (CosyPose + MegaPose):
                   sharding, object-asset sharding).
 
 Unlike the reference (CUDA/torch + multiprocess OpenGL renderers), the whole
-render->crop->CNN->SE(3)-update loop here lives on-chip inside a single jitted
+render->crop->CNN->SE(3)-update loop here lives on the device in a single jitted
 computation; scaling is expressed with jax.sharding over a device Mesh.
 """
 

@@ -8,7 +8,7 @@ dropout, missing pixels).
 
 Design delta: the reference runs PIL per sample in DataLoader workers; here
 every augmentation is a batched jit-compatible array op so the whole
-training input pipeline can run on-chip.
+training input pipeline can run on the device.
 """
 
 from __future__ import annotations

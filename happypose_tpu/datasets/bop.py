@@ -79,7 +79,7 @@ class BOPObjectDataset:
         """max_faces > 0 decimates high-resolution models at load time
         (vertex clustering; UVs/textures preserved) — full-resolution BOP
         models run 50-500k faces, far past the padded-tensor budget the
-        on-chip rasterizer wants. The reference sidesteps this with
+        on-device rasterizer wants. The reference sidesteps this with
         `_eval`/`_panda3d` downsampled model variants (datasets_cfg.py)."""
         models_dir = Path(models_dir)
         info_path = models_dir / "models_info.json"

@@ -27,7 +27,7 @@ border checks. Re-designed without an external physics/GL engine:
 - **visib_fract**: occlusion-aware, from solo-vs-composite depth.
 
 Everything host-side is numpy on tiny arrays; all rendering is the
-on-chip rasterizer.
+on-device rasterizer.
 """
 
 from __future__ import annotations

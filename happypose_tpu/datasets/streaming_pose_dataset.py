@@ -6,9 +6,9 @@ processes) and toolbox/datasets/web_scene_dataset.py:54-252. The reference
 streams 2M PBR images from tar shards through torch DataLoader workers;
 whole-dataset RAM/HBM caches cannot reach that scale.
 
-TPU-native redesign: a host prefetch THREAD decodes shard samples into
+Redesign: a host prefetch THREAD decodes shard samples into
 fixed-size frame CHUNKS (uint8 numpy + per-object annotations); the training
-iterator device_puts one chunk at a time ([chunk, H, W, 3] uint8 in HBM) and
+iterator device_puts one chunk at a time ([chunk, H, W, 3] uint8 on device) and
 builds batches by device-side gather exactly like PoseDataset's device
 cache — so per-batch host->device traffic stays a handful of ints while the
 NEXT chunk decodes concurrently on the host. Training throughput matches

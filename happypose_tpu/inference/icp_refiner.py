@@ -5,7 +5,7 @@ icp_refiner.py:135-303 (`ICPRefiner`: render depth at the predicted pose,
 mask-erode, then point-to-plane ICP of rendered vs observed depth clouds;
 the reference uses Open3D on CPU per instance).
 
-TPU design: everything is a fixed-size batched computation — depth maps are
+Design: everything is a fixed-size batched computation — depth maps are
 back-projected to fixed-count point sets (masked), observed-cloud normals
 come from depth-image gradients, correspondences are dense nearest-neighbor
 (masked [N, M] distances), and each iteration solves the 6x6 point-to-plane

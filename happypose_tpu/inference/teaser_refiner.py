@@ -8,7 +8,7 @@ solve a robust registration, and accept the update only when enough inliers
 survive (:276-283). The reference shells out to the external TEASER++
 library; its rotation solver there is GNC-TLS (:44-46).
 
-TPU redesign: the whole refiner is a fixed-shape batched computation —
+Redesign: the whole refiner is a fixed-shape batched computation —
 graduated non-convexity over a truncated-least-squares registration
 (Yang et al., "Graduated Non-Convexity for Robust Spatial Perception"),
 each GNC step a weighted Procrustes solve (3x3 SVD on device), `lax.scan`

@@ -87,7 +87,7 @@ class BatchedMeshes:
 @jax.tree_util.register_pytree_node_class
 @dataclass
 class RenderAssets:
-    """Padded triangle soup for the on-chip rasterizer.
+    """Padded triangle soup for the on-device rasterizer.
 
     Attributes:
       vertices: [n_obj, V, 3] float32, zero-padded.

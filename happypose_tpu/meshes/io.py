@@ -668,10 +668,9 @@ def decimate_mesh(mesh: Mesh, target_faces: int) -> Mesh:
     representative = the cell's first vertex, so colors/UVs/normals carry
     over); degenerate faces drop out. The grid resolution is bisected
     until the face budget holds. The reference renders full-resolution
-    meshes through OpenGL where face count is nearly free; on the TPU
-    rasterizer face count is the VMEM/compute axis, so keeping training
-    meshes under the tile-major kernel's resident-face budget
-    (rasterizer_pallas._tilemajor_vmem_bytes) is a real speed lever.
+    meshes through OpenGL where face count is nearly free; for the
+    batched rasterizer face count is the padded-tensor and compute axis,
+    so keeping training meshes small is a speed lever.
     """
     if len(mesh.faces) <= target_faces:
         return mesh

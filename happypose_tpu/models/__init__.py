@@ -1,4 +1,4 @@
-"""Flax models: CNN backbones and render-and-compare pose predictors."""
+"""Models: CNN backbones and render-and-compare pose predictors."""
 
 from happypose_tpu.models.backbones import (
     EfficientNetB0,

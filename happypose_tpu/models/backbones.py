@@ -1,64 +1,60 @@
-"""CNN backbones (Flax linen, NHWC, bf16-friendly).
+"""CNN backbones (NHWC, bf16-friendly), on the layers of `models.layers`.
 
 Parity targets: the reference's pose-model backbones —
 WideResNet18/34 with pre-activation BasicBlockV2 and a 5x5/stride-2 stem
 (/root/reference/happypose/pose_estimators/cosypose/cosypose/models/
 wide_resnet.py:18-136) and a torchvision-style ResNet34 v1 with an
 `n_inputs` argument (megapose/models/resnet.py:68-349). Architectures are
-re-implemented natively in Flax with NHWC layout and a compute-dtype knob so
-the MXU runs in bfloat16 while params/BN stats stay float32.
+re-implemented in NHWC layout with a compute-dtype knob so convolutions
+run in bfloat16 while params/BN stats stay float32.
 
-BatchNorm supports cross-device sync through `axis_name` (the TPU analog of
+BatchNorm supports cross-device sync through `axis_name` (the analog of
 the reference's SyncBatchNorm option, train_megapose.py:270-277).
 """
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
+from functools import partial
 from typing import Any, Optional, Sequence
 
+import jax
 import jax.numpy as jnp
-from flax import linen as nn
+
+from happypose_tpu.models.layers import Module, Scope, batch_norm, conv, max_pool
 
 Dtype = Any
+relu = jax.nn.relu
+swish = jax.nn.swish
 
 
-class BasicBlockV2(nn.Module):
+def _norm(train: bool, dtype: Dtype, bn_axis_name: Optional[str]):
+    return partial(
+        batch_norm, train=train, momentum=0.9, dtype=dtype,
+        axis_name=bn_axis_name if train else None,
+    )
+
+
+def basic_block_v2(s: Scope, x, planes: int, stride: int, downsample: bool,
+                   dtype: Dtype, bn_axis_name: Optional[str], train: bool):
     """Pre-activation residual block (He et al. 2016, identity mappings)."""
-
-    planes: int
-    stride: int = 1
-    downsample: bool = False
-    dtype: Dtype = jnp.float32
-    bn_axis_name: Optional[str] = None
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        norm = lambda: nn.BatchNorm(
-            use_running_average=not train,
-            momentum=0.9,
-            dtype=self.dtype,
-            axis_name=self.bn_axis_name if train else None,
-        )
-        out = nn.relu(norm()(x))
-        if self.downsample:
-            residual = nn.Conv(
-                self.planes, (1, 1), strides=(self.stride, self.stride),
-                use_bias=False, dtype=self.dtype,
-            )(out)
-        else:
-            residual = x
-        out = nn.Conv(
-            self.planes, (3, 3), strides=(self.stride, self.stride),
-            padding=1, use_bias=False, dtype=self.dtype,
-        )(out)
-        out = nn.relu(norm()(out))
-        out = nn.Conv(
-            self.planes, (3, 3), padding=1, use_bias=False, dtype=self.dtype
-        )(out)
-        return out + residual
+    norm = _norm(train, dtype, bn_axis_name)
+    out = relu(norm(s, x))
+    if downsample:
+        residual = conv(s, out, planes, 1, strides=stride, use_bias=False,
+                        dtype=dtype)
+    else:
+        residual = x
+    out = conv(s, out, planes, 3, strides=stride, padding=1, use_bias=False,
+               dtype=dtype)
+    out = relu(norm(s, out))
+    out = conv(s, out, planes, 3, padding=1, use_bias=False, dtype=dtype)
+    return out + residual
 
 
-class WideResNet(nn.Module):
+@dataclass(frozen=True)
+class WideResNet(Module):
     """Stem (5x5/s2 conv + BN + ReLU + 3x3/s2 maxpool) + 4 v2 stages.
 
     Input: [B, H, W, C]; output: [B, n_features] (global average pool).
@@ -73,29 +69,22 @@ class WideResNet(nn.Module):
     def n_features(self) -> int:
         return int(512 * self.width)
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
+    def forward(self, s: Scope, x, train: bool = False):
         config = [int(v * self.width) for v in (64, 128, 256, 512)]
-        x = nn.Conv(
-            config[0], (5, 5), strides=(2, 2), padding=2, use_bias=False,
-            dtype=self.dtype,
-        )(x)
-        x = nn.BatchNorm(
-            use_running_average=not train, momentum=0.9, dtype=self.dtype,
-            axis_name=self.bn_axis_name if train else None,
-        )(x)
-        x = nn.relu(x)
-        x = nn.max_pool(x, (3, 3), strides=(2, 2), padding=((1, 1), (1, 1)))
+        x = conv(s, x, config[0], 5, strides=2, padding=2, use_bias=False,
+                 dtype=self.dtype)
+        x = relu(_norm(train, self.dtype, self.bn_axis_name)(s, x))
+        x = max_pool(x, 3, 2, 1)
         inplanes = config[0]
         for stage, (planes, blocks) in enumerate(zip(config, self.layers)):
             stride = 1 if stage == 0 else 2
             for b in range(blocks):
-                s = stride if b == 0 else 1
-                ds = b == 0 and (s != 1 or inplanes != planes)
-                x = BasicBlockV2(
-                    planes=planes, stride=s, downsample=ds, dtype=self.dtype,
-                    bn_axis_name=self.bn_axis_name,
-                )(x, train=train)
+                st = stride if b == 0 else 1
+                ds = b == 0 and (st != 1 or inplanes != planes)
+                x = basic_block_v2(
+                    s.auto("BasicBlockV2"), x, planes, st, ds, self.dtype,
+                    self.bn_axis_name, train,
+                )
                 inplanes = planes
         x = jnp.mean(x, axis=(1, 2))  # global average pool -> [B, F]
         return x.astype(jnp.float32)
@@ -109,43 +98,25 @@ def WideResNet34(**kw) -> WideResNet:
     return WideResNet(layers=(3, 4, 6, 3), **kw)
 
 
-class BasicBlockV1(nn.Module):
+def basic_block_v1(s: Scope, x, planes: int, stride: int, downsample: bool,
+                   dtype: Dtype, bn_axis_name: Optional[str], train: bool):
     """Post-activation residual block (torchvision ResNet v1)."""
-
-    planes: int
-    stride: int = 1
-    downsample: bool = False
-    dtype: Dtype = jnp.float32
-    bn_axis_name: Optional[str] = None
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        norm = lambda: nn.BatchNorm(
-            use_running_average=not train,
-            momentum=0.9,
-            dtype=self.dtype,
-            axis_name=self.bn_axis_name if train else None,
-        )
-        residual = x
-        out = nn.Conv(
-            self.planes, (3, 3), strides=(self.stride, self.stride), padding=1,
-            use_bias=False, dtype=self.dtype,
-        )(x)
-        out = nn.relu(norm()(out))
-        out = nn.Conv(
-            self.planes, (3, 3), padding=1, use_bias=False, dtype=self.dtype
-        )(out)
-        out = norm()(out)
-        if self.downsample:
-            residual = nn.Conv(
-                self.planes, (1, 1), strides=(self.stride, self.stride),
-                use_bias=False, dtype=self.dtype,
-            )(x)
-            residual = norm()(residual)
-        return nn.relu(out + residual)
+    norm = _norm(train, dtype, bn_axis_name)
+    residual = x
+    out = conv(s, x, planes, 3, strides=stride, padding=1, use_bias=False,
+               dtype=dtype)
+    out = relu(norm(s, out))
+    out = conv(s, out, planes, 3, padding=1, use_bias=False, dtype=dtype)
+    out = norm(s, out)
+    if downsample:
+        residual = conv(s, x, planes, 1, strides=stride, use_bias=False,
+                        dtype=dtype)
+        residual = norm(s, residual)
+    return relu(out + residual)
 
 
-class ResNet(nn.Module):
+@dataclass(frozen=True)
+class ResNet(Module):
     """torchvision-style ResNet v1 (7x7/s2 stem), `n_inputs` free.
 
     The reference's `vanilla_resnet34` is the MegaPose default backbone
@@ -160,30 +131,23 @@ class ResNet(nn.Module):
     def n_features(self) -> int:
         return 512
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        x = nn.Conv(
-            64, (7, 7), strides=(2, 2), padding=3, use_bias=False,
-            dtype=self.dtype,
-        )(x)
-        x = nn.BatchNorm(
-            use_running_average=not train, momentum=0.9, dtype=self.dtype,
-            axis_name=self.bn_axis_name if train else None,
-        )(x)
-        x = nn.relu(x)
-        x = nn.max_pool(x, (3, 3), strides=(2, 2), padding=((1, 1), (1, 1)))
+    def forward(self, s: Scope, x, train: bool = False):
+        x = conv(s, x, 64, 7, strides=2, padding=3, use_bias=False,
+                 dtype=self.dtype)
+        x = relu(_norm(train, self.dtype, self.bn_axis_name)(s, x))
+        x = max_pool(x, 3, 2, 1)
         inplanes = 64
         for stage, (planes, blocks) in enumerate(
             zip((64, 128, 256, 512), self.layers)
         ):
             stride = 1 if stage == 0 else 2
             for b in range(blocks):
-                s = stride if b == 0 else 1
-                ds = b == 0 and (s != 1 or inplanes != planes)
-                x = BasicBlockV1(
-                    planes=planes, stride=s, downsample=ds, dtype=self.dtype,
-                    bn_axis_name=self.bn_axis_name,
-                )(x, train=train)
+                st = stride if b == 0 else 1
+                ds = b == 0 and (st != 1 or inplanes != planes)
+                x = basic_block_v1(
+                    s.auto("BasicBlockV1"), x, planes, st, ds, self.dtype,
+                    self.bn_axis_name, train,
+                )
                 inplanes = planes
         x = jnp.mean(x, axis=(1, 2))
         return x.astype(jnp.float32)
@@ -193,47 +157,46 @@ def ResNet34(**kw) -> ResNet:
     return ResNet(layers=(3, 4, 6, 3), **kw)
 
 
-class MBConv(nn.Module):
+def mb_conv(s: Scope, x, out_ch: int, expand: int, kernel: int, stride: int,
+            dtype: Dtype, bn_axis_name: Optional[str], train: bool,
+            se_ratio: float = 0.25):
     """Mobile inverted bottleneck (EfficientNet building block)."""
-
-    out_ch: int
-    expand: int
-    kernel: int
-    stride: int
-    se_ratio: float = 0.25
-    dtype: Dtype = jnp.float32
-    bn_axis_name: Optional[str] = None
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        norm = lambda: nn.BatchNorm(
-            use_running_average=not train, momentum=0.9, dtype=self.dtype,
-            axis_name=self.bn_axis_name if train else None,
-        )
-        in_ch = x.shape[-1]
-        h = x
-        mid = in_ch * self.expand
-        if self.expand != 1:
-            h = nn.swish(norm()(nn.Conv(
-                mid, (1, 1), use_bias=False, dtype=self.dtype)(h)))
-        h = nn.swish(norm()(nn.Conv(
-            mid, (self.kernel, self.kernel),
-            strides=(self.stride, self.stride), padding=self.kernel // 2,
-            feature_group_count=mid, use_bias=False, dtype=self.dtype)(h)))
-        # squeeze-excite
-        se_ch = max(1, int(in_ch * self.se_ratio))
-        s = jnp.mean(h, axis=(1, 2), keepdims=True)
-        s = nn.swish(nn.Conv(se_ch, (1, 1), dtype=self.dtype)(s))
-        s = nn.sigmoid(nn.Conv(mid, (1, 1), dtype=self.dtype)(s))
-        h = h * s
-        h = norm()(nn.Conv(
-            self.out_ch, (1, 1), use_bias=False, dtype=self.dtype)(h))
-        if self.stride == 1 and in_ch == self.out_ch:
-            h = h + x
-        return h
+    norm = _norm(train, dtype, bn_axis_name)
+    in_ch = x.shape[-1]
+    h = x
+    mid = in_ch * expand
+    if expand != 1:
+        h = swish(norm(s, conv(s, h, mid, 1, use_bias=False, dtype=dtype)))
+    h = swish(norm(s, conv(
+        s, h, mid, kernel, strides=stride, padding=kernel // 2, groups=mid,
+        use_bias=False, dtype=dtype,
+    )))
+    # squeeze-excite
+    se_ch = max(1, int(in_ch * se_ratio))
+    sq = jnp.mean(h, axis=(1, 2), keepdims=True)
+    sq = swish(conv(s, sq, se_ch, 1, dtype=dtype))
+    sq = jax.nn.sigmoid(conv(s, sq, mid, 1, dtype=dtype))
+    h = h * sq
+    h = norm(s, conv(s, h, out_ch, 1, use_bias=False, dtype=dtype))
+    if stride == 1 and in_ch == out_ch:
+        h = h + x
+    return h
 
 
-class EfficientNet(nn.Module):
+# (expand, out_ch, n_repeat, stride, kernel) per stage (B0 base)
+_EFFICIENTNET_STAGES = (
+    (1, 16, 1, 1, 3),
+    (6, 24, 2, 2, 3),
+    (6, 40, 2, 2, 5),
+    (6, 80, 3, 2, 3),
+    (6, 112, 3, 1, 5),
+    (6, 192, 4, 2, 5),
+    (6, 320, 1, 1, 3),
+)
+
+
+@dataclass(frozen=True)
+class EfficientNet(Module):
     """EfficientNet (B0/B3 scalings) with free input-channel count.
 
     Parity target: the reference's EfficientNet-b3 pose backbone
@@ -246,17 +209,6 @@ class EfficientNet(nn.Module):
     dtype: Dtype = jnp.float32
     bn_axis_name: Optional[str] = None
 
-    # (expand, out_ch, n_repeat, stride, kernel) per stage (B0 base)
-    _STAGES = (
-        (1, 16, 1, 1, 3),
-        (6, 24, 2, 2, 3),
-        (6, 40, 2, 2, 5),
-        (6, 80, 3, 2, 3),
-        (6, 112, 3, 1, 5),
-        (6, 192, 4, 2, 5),
-        (6, 320, 1, 1, 3),
-    )
-
     @property
     def n_features(self) -> int:
         return self._round_ch(1280)
@@ -268,27 +220,23 @@ class EfficientNet(nn.Module):
             out += 8
         return out
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        import math
-
-        norm = lambda: nn.BatchNorm(
-            use_running_average=not train, momentum=0.9, dtype=self.dtype,
-            axis_name=self.bn_axis_name if train else None,
-        )
-        x = nn.swish(norm()(nn.Conv(
-            self._round_ch(32), (3, 3), strides=(2, 2), padding=1,
-            use_bias=False, dtype=self.dtype)(x)))
-        for (expand, out_ch, repeats, stride, kernel) in self._STAGES:
+    def forward(self, s: Scope, x, train: bool = False):
+        norm = _norm(train, self.dtype, self.bn_axis_name)
+        x = swish(norm(s, conv(
+            s, x, self._round_ch(32), 3, strides=2, padding=1, use_bias=False,
+            dtype=self.dtype,
+        )))
+        for (expand, out_ch, repeats, stride, kernel) in _EFFICIENTNET_STAGES:
             reps = int(math.ceil(repeats * self.depth_mult))
             for r in range(reps):
-                x = MBConv(
-                    out_ch=self._round_ch(out_ch), expand=expand,
-                    kernel=kernel, stride=stride if r == 0 else 1,
-                    dtype=self.dtype, bn_axis_name=self.bn_axis_name,
-                )(x, train=train)
-        x = nn.swish(norm()(nn.Conv(
-            self.n_features, (1, 1), use_bias=False, dtype=self.dtype)(x)))
+                x = mb_conv(
+                    s.auto("MBConv"), x, self._round_ch(out_ch), expand,
+                    kernel, stride if r == 0 else 1, self.dtype,
+                    self.bn_axis_name, train,
+                )
+        x = swish(norm(s, conv(
+            s, x, self.n_features, 1, use_bias=False, dtype=self.dtype
+        )))
         x = jnp.mean(x, axis=(1, 2))
         return x.astype(jnp.float32)
 
@@ -301,7 +249,8 @@ def EfficientNetB3(**kw) -> EfficientNet:
     return EfficientNet(width_mult=1.2, depth_mult=1.4, **kw)
 
 
-class FlowNetS(nn.Module):
+@dataclass(frozen=True)
+class FlowNetS(Module):
     """FlowNetS encoder (the reference's 'flownet' pose backbone).
 
     Parity target: cosypose/models/flownet.py:9-58 — the FlowNetS
@@ -321,27 +270,23 @@ class FlowNetS(nn.Module):
     def n_features(self) -> int:
         return 1024
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        def conv(x, ch, kernel, stride=1):
-            x = nn.Conv(
-                ch, (kernel, kernel), strides=(stride, stride),
-                padding=(kernel - 1) // 2, use_bias=not self.use_batchnorm,
-                dtype=self.dtype,
-            )(x)
-            if self.use_batchnorm:
-                x = nn.BatchNorm(
-                    use_running_average=not train, momentum=0.9,
-                    dtype=self.dtype,
-                    axis_name=self.bn_axis_name if train else None,
-                )(x)
-            return nn.leaky_relu(x, negative_slope=0.1)
+    def forward(self, s: Scope, x, train: bool = False):
+        norm = _norm(train, self.dtype, self.bn_axis_name)
 
-        x = conv(x, 64, 7, 2)
-        x = conv(x, 128, 5, 2)
-        x = conv(conv(x, 256, 5, 2), 256, 3)
-        x = conv(conv(x, 512, 3, 2), 512, 3)
-        x = conv(conv(x, 512, 3, 2), 512, 3)
-        x = conv(conv(x, 1024, 3, 2), 1024, 3)
+        def block(x, ch, kernel, stride=1):
+            x = conv(
+                s, x, ch, kernel, strides=stride, padding=(kernel - 1) // 2,
+                use_bias=not self.use_batchnorm, dtype=self.dtype,
+            )
+            if self.use_batchnorm:
+                x = norm(s, x)
+            return jax.nn.leaky_relu(x, negative_slope=0.1)
+
+        x = block(x, 64, 7, 2)
+        x = block(x, 128, 5, 2)
+        x = block(block(x, 256, 5, 2), 256, 3)
+        x = block(block(x, 512, 3, 2), 512, 3)
+        x = block(block(x, 512, 3, 2), 512, 3)
+        x = block(block(x, 1024, 3, 2), 1024, 3)
         x = jnp.mean(x, axis=(1, 2))
         return x.astype(jnp.float32)

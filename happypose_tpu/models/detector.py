@@ -1,11 +1,11 @@
-"""Object detector with instance masks (Flax, single-stage, static shapes).
+"""Object detector with instance masks (single-stage, static shapes).
 
 Capability parity target: the reference's `DetectorMaskRCNN`
 (/root/reference/happypose/pose_estimators/cosypose/cosypose/models/
 mask_rcnn.py:6-27 — torchvision Mask R-CNN, resnet50-FPN) and its wrapper
 `Detector.get_detections` (cosypose/integrated/detector.py:16-131).
 
-TPU-first design delta (SURVEY.md §7): a two-stage detector's dynamic
+Design delta (SURVEY.md §7): a two-stage detector's dynamic
 proposal shapes are hostile to XLA; this is an anchor-free FCOS-style dense
 detector (Tian et al., ICCV'19) with a YOLACT-style prototype mask branch
 (Bolya et al., ICCV'19) on a ResNet50-FPN. Everything — training loss and
@@ -17,95 +17,74 @@ binary masks.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Optional, Tuple
-
 from functools import partial
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+
+from happypose_tpu.models.layers import (
+    Module, Scope, batch_norm, conv, init, max_pool,
+)
 
 Dtype = Any
+relu = jax.nn.relu
 
 
-class Bottleneck(nn.Module):
-    planes: int
-    stride: int = 1
-    downsample: bool = False
-    dtype: Dtype = jnp.float32
-    bn_axis_name: Optional[str] = None
-
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        norm = lambda: nn.BatchNorm(
-            use_running_average=not train, momentum=0.9, dtype=self.dtype,
-            axis_name=self.bn_axis_name if train else None,
-        )
-        residual = x
-        out = nn.relu(norm()(nn.Conv(
-            self.planes, (1, 1), use_bias=False, dtype=self.dtype)(x)))
-        out = nn.relu(norm()(nn.Conv(
-            self.planes, (3, 3), strides=(self.stride, self.stride),
-            padding=1, use_bias=False, dtype=self.dtype)(out)))
-        out = norm()(nn.Conv(
-            self.planes * 4, (1, 1), use_bias=False, dtype=self.dtype)(out))
-        if self.downsample:
-            residual = norm()(nn.Conv(
-                self.planes * 4, (1, 1),
-                strides=(self.stride, self.stride), use_bias=False,
-                dtype=self.dtype)(x))
-        return nn.relu(out + residual)
+def bottleneck(s: Scope, x, planes: int, stride: int, downsample: bool,
+               dtype: Dtype, bn_axis_name: Optional[str], train: bool):
+    norm = partial(
+        batch_norm, train=train, momentum=0.9, dtype=dtype,
+        axis_name=bn_axis_name if train else None,
+    )
+    residual = x
+    out = relu(norm(s, conv(s, x, planes, 1, use_bias=False, dtype=dtype)))
+    out = relu(norm(s, conv(s, out, planes, 3, strides=stride, padding=1,
+                            use_bias=False, dtype=dtype)))
+    out = norm(s, conv(s, out, planes * 4, 1, use_bias=False, dtype=dtype))
+    if downsample:
+        residual = norm(s, conv(s, x, planes * 4, 1, strides=stride,
+                                use_bias=False, dtype=dtype))
+    return relu(out + residual)
 
 
-class ResNet50FPN(nn.Module):
-    """ResNet50 backbone + FPN; returns pyramid levels P3..P7 (NHWC)."""
+def resnet50_fpn(s: Scope, x, fpn_channels: int, dtype: Dtype,
+                 bn_axis_name: Optional[str], train: bool):
+    """ResNet50 backbone + FPN; returns (pyramid levels P3..P7, C2), NHWC."""
+    norm = partial(
+        batch_norm, train=train, momentum=0.9, dtype=dtype,
+        axis_name=bn_axis_name if train else None,
+    )
+    x = conv(s, x, 64, 7, strides=2, padding=3, use_bias=False, dtype=dtype)
+    x = relu(norm(s, x))
+    x = max_pool(x, 3, 2, 1)
 
-    fpn_channels: int = 256
-    dtype: Dtype = jnp.float32
-    bn_axis_name: Optional[str] = None
+    feats = []
+    for stage, (planes, blocks) in enumerate(
+        zip((64, 128, 256, 512), (3, 4, 6, 3))
+    ):
+        stride = 1 if stage == 0 else 2
+        for b in range(blocks):
+            x = bottleneck(
+                s.auto("Bottleneck"), x, planes, stride if b == 0 else 1,
+                b == 0, dtype, bn_axis_name, train,
+            )
+        feats.append(x)
+    c2, c3, c4, c5 = feats
 
-    @nn.compact
-    def __call__(self, x, train: bool = False):
-        norm = lambda: nn.BatchNorm(
-            use_running_average=not train, momentum=0.9, dtype=self.dtype,
-            axis_name=self.bn_axis_name if train else None,
-        )
-        x = nn.Conv(64, (7, 7), strides=(2, 2), padding=3, use_bias=False,
-                    dtype=self.dtype)(x)
-        x = nn.relu(norm()(x))
-        x = nn.max_pool(x, (3, 3), strides=(2, 2), padding=((1, 1), (1, 1)))
-
-        feats = []
-        inplanes = 64
-        for stage, (planes, blocks) in enumerate(
-            zip((64, 128, 256, 512), (3, 4, 6, 3))
-        ):
-            stride = 1 if stage == 0 else 2
-            for b in range(blocks):
-                s = stride if b == 0 else 1
-                ds = b == 0
-                x = Bottleneck(
-                    planes=planes, stride=s, downsample=ds, dtype=self.dtype,
-                    bn_axis_name=self.bn_axis_name,
-                )(x, train=train)
-                inplanes = planes * 4
-            feats.append(x)
-        c2, c3, c4, c5 = feats
-
-        # FPN top-down
-        p5 = nn.Conv(self.fpn_channels, (1, 1), dtype=self.dtype)(c5)
-        p4 = nn.Conv(self.fpn_channels, (1, 1), dtype=self.dtype)(c4)
-        p3 = nn.Conv(self.fpn_channels, (1, 1), dtype=self.dtype)(c3)
-        p4 = p4 + jax.image.resize(p5, p4.shape, "nearest")
-        p3 = p3 + jax.image.resize(p4, p3.shape, "nearest")
-        p3 = nn.Conv(self.fpn_channels, (3, 3), padding=1, dtype=self.dtype)(p3)
-        p4 = nn.Conv(self.fpn_channels, (3, 3), padding=1, dtype=self.dtype)(p4)
-        p5 = nn.Conv(self.fpn_channels, (3, 3), padding=1, dtype=self.dtype)(p5)
-        p6 = nn.Conv(self.fpn_channels, (3, 3), strides=(2, 2), padding=1,
-                     dtype=self.dtype)(p5)
-        p7 = nn.Conv(self.fpn_channels, (3, 3), strides=(2, 2), padding=1,
-                     dtype=self.dtype)(nn.relu(p6))
-        return [p3, p4, p5, p6, p7], c2
+    # FPN top-down
+    fpn = partial(conv, s, features=fpn_channels, dtype=dtype)
+    p5 = fpn(c5, kernel=1)
+    p4 = fpn(c4, kernel=1)
+    p3 = fpn(c3, kernel=1)
+    p4 = p4 + jax.image.resize(p5, p4.shape, "nearest")
+    p3 = p3 + jax.image.resize(p4, p3.shape, "nearest")
+    p3 = fpn(p3, kernel=3, padding=1)
+    p4 = fpn(p4, kernel=3, padding=1)
+    p5 = fpn(p5, kernel=3, padding=1)
+    p6 = fpn(p5, kernel=3, strides=2, padding=1)
+    p7 = fpn(relu(p6), kernel=3, strides=2, padding=1)
+    return [p3, p4, p5, p6, p7], c2
 
 
 @dataclass(frozen=True)
@@ -129,56 +108,41 @@ class DetectorOutputs(NamedTuple):
     level_ids: jax.Array  # [L]
 
 
-class FCOSDetector(nn.Module):
+@dataclass(frozen=True)
+class FCOSDetector(Module):
     cfg: DetectorConfig
 
-    @nn.compact
-    def __call__(self, images, train: bool = False) -> DetectorOutputs:
+    def forward(self, s: Scope, images, train: bool = False) -> DetectorOutputs:
         """images: [B, 3, H, W] in [0, 1]."""
         cfg = self.cfg
         dtype = (
             jnp.bfloat16 if cfg.compute_dtype == "bfloat16" else jnp.float32
         )
         x = jnp.moveaxis(images, 1, -1).astype(dtype)
-        pyramid, c2 = ResNet50FPN(
-            fpn_channels=cfg.fpn_channels, dtype=dtype,
-            bn_axis_name=cfg.bn_axis_name,
-        )(x, train=train)
+        pyramid, c2 = resnet50_fpn(
+            s.auto("ResNet50FPN"), x, cfg.fpn_channels, dtype,
+            cfg.bn_axis_name, train,
+        )
 
-        # shared heads across levels
-        cls_tower = [
-            nn.Conv(cfg.fpn_channels, (3, 3), padding=1, dtype=dtype,
-                    name=f"cls_tower_{i}")
-            for i in range(cfg.head_depth)
-        ]
-        box_tower = [
-            nn.Conv(cfg.fpn_channels, (3, 3), padding=1, dtype=dtype,
-                    name=f"box_tower_{i}")
-            for i in range(cfg.head_depth)
-        ]
-        cls_head = nn.Conv(
-            cfg.n_classes, (3, 3), padding=1, dtype=dtype, name="cls_head",
-            bias_init=nn.initializers.constant(-4.6),  # focal prior ~0.01
-        )
-        box_head = nn.Conv(4, (3, 3), padding=1, dtype=dtype, name="box_head")
-        ctr_head = nn.Conv(1, (3, 3), padding=1, dtype=dtype, name="ctr_head")
-        coef_head = nn.Conv(
-            cfg.n_prototypes, (3, 3), padding=1, dtype=dtype, name="coef_head"
-        )
+        # heads shared across levels: the same names reuse the same weights
+        head = partial(conv, s, kernel=3, padding=1, dtype=dtype)
 
         all_cls, all_box, all_ctr, all_coef = [], [], [], []
         all_loc, all_lvl = [], []
         for lvl, (p, stride) in enumerate(zip(pyramid, cfg.strides)):
             c = p
-            for conv in cls_tower:
-                c = nn.relu(conv(c))
+            for i in range(cfg.head_depth):
+                c = relu(head(c, cfg.fpn_channels, name=f"cls_tower_{i}"))
             b = p
-            for conv in box_tower:
-                b = nn.relu(conv(b))
-            cls = cls_head(c)
-            box = jnp.exp(box_head(b)) * stride  # positive distances
-            ctr = ctr_head(b)[..., 0]
-            coef = jnp.tanh(coef_head(c))
+            for i in range(cfg.head_depth):
+                b = relu(head(b, cfg.fpn_channels, name=f"box_tower_{i}"))
+            cls = head(
+                c, cfg.n_classes, name="cls_head",
+                bias_init=init.constant(-4.6),  # focal prior ~0.01
+            )
+            box = jnp.exp(head(b, 4, name="box_head")) * stride  # positive
+            ctr = head(b, 1, name="ctr_head")[..., 0]
+            coef = jnp.tanh(head(c, cfg.n_prototypes, name="coef_head"))
             B, Hl, Wl = cls.shape[:3]
             all_cls.append(cls.reshape(B, Hl * Wl, -1).astype(jnp.float32))
             all_box.append(box.reshape(B, Hl * Wl, 4).astype(jnp.float32))
@@ -195,17 +159,16 @@ class FCOSDetector(nn.Module):
         # prototype masks from P3 (upsampled 2x)
         proto = pyramid[0]
         for _ in range(2):
-            proto = nn.relu(
-                nn.Conv(cfg.fpn_channels // 2, (3, 3), padding=1, dtype=dtype)(
-                    proto
-                )
+            proto = relu(
+                conv(s, proto, cfg.fpn_channels // 2, 3, padding=1,
+                     dtype=dtype)
             )
         proto = jax.image.resize(
             proto, (proto.shape[0], proto.shape[1] * 2, proto.shape[2] * 2,
                     proto.shape[3]), "bilinear",
         )
-        proto = nn.Conv(cfg.n_prototypes, (1, 1), dtype=dtype)(proto)
-        proto = nn.relu(proto).astype(jnp.float32)
+        proto = conv(s, proto, cfg.n_prototypes, 1, dtype=dtype)
+        proto = relu(proto).astype(jnp.float32)
 
         return DetectorOutputs(
             cls_logits=jnp.concatenate(all_cls, axis=1),

@@ -1,10 +1,10 @@
-"""Render-and-compare pose predictor (Flax).
+"""Render-and-compare pose predictor.
 
 Parity target: /root/reference/happypose/pose_estimators/megapose/models/
 pose_rigid.py (`PosePredictor`, :96-788) and the simpler CosyPose variant
-(cosypose/models/pose.py:116-199). Design deltas (TPU-first):
+(cosypose/models/pose.py:116-199). Design deltas:
 
-- The renderer is the on-chip rasterizer, so the whole iteration
+- The renderer is the on-device rasterizer, so the whole iteration
   (crop -> render -> CNN -> SE(3) update) is one jitted computation —
   no process boundary, no host math (`make_TCO_multiview` is closed-form).
 - Labels are int32 object ids indexing padded mesh tensors; the per-instance
@@ -24,7 +24,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
 from happypose_tpu.lib3d.camera import (
     get_K_crop_resize,
@@ -37,9 +36,9 @@ from happypose_tpu.lib3d.pose_update import pose_update_with_reference_point
 from happypose_tpu.lib3d.rotations import quat_to_rotmat, rotmat_from_ortho6d
 from happypose_tpu.lib3d.transforms import normalize_T
 from happypose_tpu.meshes.database import BatchedMeshes, RenderAssets
-from happypose_tpu.ops.rasterizer import render_batch
-from happypose_tpu.ops.rasterizer_pallas import render_batch_pallas
 from happypose_tpu.ops.crop_resize import crop_images_matmul
+from happypose_tpu.ops.renderers import get_renderer
+from happypose_tpu.models.layers import Module, Scope, Context, dense, init
 from happypose_tpu.models.backbones import (
     EfficientNetB3,
     FlowNetS,
@@ -51,7 +50,7 @@ from happypose_tpu.models.backbones import (
 
 @dataclass(frozen=True)
 class PosePredictorConfig:
-    """Static model configuration (hashable; safe as a linen attribute)."""
+    """Static model configuration (hashable; safe as a jit static argument)."""
 
     backbone: str = "resnet34"  # resnet34 | wide_resnet18 | wide_resnet34
     #   | efficientnet_b3 | flownet
@@ -70,7 +69,8 @@ class PosePredictorConfig:
     pose_head: str = "ortho6d"
     crop_lamb: float = 1.4
     compute_dtype: str = "float32"  # float32 | bfloat16
-    renderer: str = "pallas"  # pallas | reference | pallas_interpret
+    # triton | reference; None: the platform's renderer (ops/renderers.py)
+    renderer: Optional[str] = None
     bn_axis_name: Optional[str] = None
 
     @property
@@ -117,30 +117,22 @@ def _identity_quat_pose_bias(key, shape, dtype=jnp.float32):
     return jnp.asarray([0, 0, 0, 1, 0, 0, 1], dtype)
 
 
-class PosePredictor(nn.Module):
+_BACKBONES = {
+    "resnet34": ResNet34,
+    "wide_resnet18": WideResNet18,
+    "wide_resnet34": WideResNet34,
+    "efficientnet_b3": EfficientNetB3,
+    "flownet": FlowNetS,
+}
+
+
+@dataclass(frozen=True)
+class PosePredictor(Module):
     cfg: PosePredictorConfig
 
-    def setup(self):
-        dtype = jnp.bfloat16 if self.cfg.compute_dtype == "bfloat16" else jnp.float32
-        mk = {
-            "resnet34": ResNet34,
-            "wide_resnet18": WideResNet18,
-            "wide_resnet34": WideResNet34,
-            "efficientnet_b3": EfficientNetB3,
-            "flownet": FlowNetS,
-        }[self.cfg.backbone]
-        self.backbone = mk(dtype=dtype, bn_axis_name=self.cfg.bn_axis_name)
-        if self.cfg.predict_pose_update:
-            quat = self.cfg.pose_head == "quaternion"
-            self.pose_fc = nn.Dense(
-                7 if quat else 9,
-                kernel_init=nn.initializers.normal(1e-3),
-                bias_init=(
-                    _identity_quat_pose_bias if quat else _identity_pose_bias
-                ),
-            )
-        if self.cfg.predict_rendered_views_logits:
-            self.views_logits_head = nn.Dense(self.cfg.n_views)
+    @property
+    def _dtype(self):
+        return jnp.bfloat16 if self.cfg.compute_dtype == "bfloat16" else jnp.float32
 
     # ---------- geometry ----------
 
@@ -195,15 +187,9 @@ class PosePredictor(nn.Module):
         cfg = self.cfg
         B, V = TCV_O.shape[:2]
         ids_rep = jnp.repeat(obj_ids, V, axis=0)
-        render_fn = {
-            "pallas": lambda *a: render_batch_pallas(*a, resolution=cfg.render_size),
-            "pallas_interpret": lambda *a: render_batch_pallas(
-                *a, resolution=cfg.render_size, interpret=True
-            ),
-            "reference": lambda *a: render_batch(*a, resolution=cfg.render_size),
-        }[cfg.renderer]
-        out = render_fn(
-            assets, ids_rep, TCV_O.reshape(B * V, 4, 4), KV_crop.reshape(B * V, 3, 3)
+        out = get_renderer(cfg.renderer)(
+            assets, ids_rep, TCV_O.reshape(B * V, 4, 4),
+            KV_crop.reshape(B * V, 3, 3), resolution=cfg.render_size,
         )
         chans = [jnp.moveaxis(out.rgb, -1, 1)]  # [BV, 3, h, w]
         if cfg.render_normals:
@@ -246,21 +232,37 @@ class PosePredictor(nn.Module):
 
     # ---------- network ----------
 
-    def _net_forward(self, x_chw, train):
+    def apply_net(self, variables, x_chw, train: bool = False):
+        """The CNN alone on a [B, C, h, w] input (observed + rendered
+        channels), with the model's variables; no batch_stats update."""
+        return self.net_forward(Scope(Context(variables, None, ())), x_chw, train)
+
+    def net_forward(self, s: Scope, x_chw, train):
         """x_chw: [B, C, h, w] -> head outputs."""
-        dtype = (
-            jnp.bfloat16 if self.cfg.compute_dtype == "bfloat16" else jnp.float32
+        cfg = self.cfg
+        x = jnp.moveaxis(x_chw, 1, -1).astype(self._dtype)  # NHWC convs
+        backbone = _BACKBONES[cfg.backbone](
+            dtype=self._dtype, bn_axis_name=cfg.bn_axis_name
         )
-        x = jnp.moveaxis(x_chw, 1, -1).astype(dtype)  # NHWC for TPU convs
-        feats = self.backbone(x, train=train)
+        feats = backbone.forward(s.child("backbone"), x, train=train)
         out = {}
-        if self.cfg.predict_pose_update:
-            out["pose"] = self.pose_fc(feats)
-        if self.cfg.predict_rendered_views_logits:
-            out["renderings_logits"] = self.views_logits_head(feats)
+        if cfg.predict_pose_update:
+            quat = cfg.pose_head == "quaternion"
+            out["pose"] = dense(
+                s, feats, 7 if quat else 9, name="pose_fc",
+                kernel_init=init.normal(1e-3),
+                bias_init=(
+                    _identity_quat_pose_bias if quat else _identity_pose_bias
+                ),
+            )
+        if cfg.predict_rendered_views_logits:
+            out["renderings_logits"] = dense(
+                s, feats, cfg.n_views, name="views_logits_head"
+            )
         return out
 
-    def _iteration(self, images, K, obj_ids, TCO_input, assets, meshes, train):
+    def _iteration(self, s, images, K, obj_ids, TCO_input, assets, meshes,
+                   train):
         cfg = self.cfg
         B = TCO_input.shape[0]
         TCO_input = jax.lax.stop_gradient(normalize_T(TCO_input))
@@ -289,12 +291,12 @@ class PosePredictor(nn.Module):
         # the renderer is non-differentiable (as in the reference); no
         # gradient ever flows through it (TCO_input is stop-gradient'd), and
         # the explicit stop_gradient keeps autodiff from materializing a
-        # transpose of the pallas kernel
+        # transpose of the render kernel
         renders = jax.lax.stop_gradient(renders)
         images_crop, renders = self._normalize_images(images_crop, renders, tCR)
 
         x = jnp.concatenate([images_crop, renders], axis=1)
-        net_out = self._net_forward(x, train)
+        net_out = self.net_forward(s, x, train)
 
         if cfg.predict_pose_update:
             pose_raw = net_out["pose"]
@@ -325,8 +327,9 @@ class PosePredictor(nn.Module):
             renderings_logits=logits,
         )
 
-    def __call__(
+    def forward(
         self,
+        s: Scope,
         images: jax.Array,  # [B, 3(+1), H, W], float in [0, 1]
         K: jax.Array,  # [B, 3, 3]
         obj_ids: jax.Array,  # [B] int32
@@ -339,39 +342,43 @@ class PosePredictor(nn.Module):
         if not self.cfg.input_depth:
             images = images[:, :3]
 
-        def body(mdl, TCO, _):
-            o = mdl._iteration(images, K, obj_ids, TCO, assets, meshes, train)
+        def body(scope, TCO):
+            o = self._iteration(
+                scope, images, K, obj_ids, TCO, assets, meshes, train
+            )
             return o.TCO_output, o
 
-        if n_iterations == 1 or self.is_initializing():
-            # single compile of the body; at init the scan wrapper is
-            # skipped (variable creation inside carried collections is
-            # iteration-independent anyway)
+        if n_iterations == 1 or s.initializing:
+            # single compile of the body; at init the scan is skipped
+            # (the variables every iteration uses are the same ones)
             outs = []
             TCO = TCO_input
             for _ in range(n_iterations):
-                TCO, o = body(self, TCO, None)
+                TCO, o = body(s, TCO)
                 outs.append(o)
             return jax.tree.map(lambda *xs: jnp.stack(xs, axis=0), *outs)
 
         # lax.scan over iterations: ONE compiled render+CNN body regardless
         # of n_iterations (the reference unrolls in Python —
         # pose_rigid.py:546-674 — which is free under eager torch but
-        # compiles n copies under jit; SURVEY.md §7)
-        if train:
-            scan = nn.scan(
-                body,
-                variable_broadcast="params",
-                variable_carry="batch_stats",
-                split_rngs={"params": False},
-                length=n_iterations,
+        # compiles n copies under jit; SURVEY.md §7). Params are closed
+        # over; batch_stats ride the carry, so in training each iteration
+        # sees the running statistics the previous one left.
+        ctx = s.ctx
+        params = ctx.variables["params"]
+
+        def step(carry, _):
+            TCO, stats = carry
+            inner = Context(
+                {"params": params, "batch_stats": stats}, None, ctx.mutable
             )
-        else:
-            scan = nn.scan(
-                body,
-                variable_broadcast=["params", "batch_stats"],
-                split_rngs={"params": False},
-                length=n_iterations,
-            )
-        _, outs = scan(self, TCO_input, None)
+            TCO, o = body(Scope(inner, s.path), TCO)
+            return (TCO, inner.variables["batch_stats"]), o
+
+        (_, stats), outs = jax.lax.scan(
+            step, (TCO_input, ctx.variables.get("batch_stats", {})), None,
+            length=n_iterations,
+        )
+        if "batch_stats" in ctx.mutable:
+            ctx.variables["batch_stats"] = stats
         return outs

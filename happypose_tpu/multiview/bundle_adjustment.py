@@ -6,7 +6,7 @@ initialization :140-198, symmetry-aligned reprojection residuals
 `align_TCO_cand` :208-221, LM with autograd Jacobians :223-350 — flagged by
 the reference itself as "could be much faster").
 
-TPU design: the whole residual vector and its Jacobian are computed in one
+Design: the whole residual vector and its Jacobian are computed in one
 jitted `jax.jacfwd` pass (forward-mode over the small [n_obj + n_view, 9]
 parameter vector — exact, no per-residual autograd replay), normal equations
 are solved on device. The first camera is gauge-fixed. Robustness follows
@@ -105,8 +105,8 @@ class MultiviewRefinement:
     # "schur_sharded": same math with the candidate axis partitioned over
     # `device_mesh` via shard_map; the JᵀJ/Jᵀe object & camera block sums
     # are psum'd over the mesh axis and the small reduced camera solve runs
-    # replicated — the north star's "blocks partitioned across hosts and
-    # reduced over ICI collectives" (ref CPU-pinverse LM this replaces:
+    # replicated — blocks partitioned across devices and reduced by
+    # collectives (ref CPU-pinverse LM this replaces:
     # cosypose/multiview/bundle_adjustment.py:272-350).
     solver: str = "dense"
     device_mesh: object = None  # jax.sharding.Mesh for "schur_sharded"
@@ -366,7 +366,7 @@ class MultiviewRefinement:
         """Schur LM step with the candidate axis partitioned over the device
         mesh: every device builds the block sums of its candidate shard,
         the [n_obj|n_views]-sized U/V/W/b blocks are psum'd over the mesh
-        axis (ICI collectives on hardware), and the small reduced camera
+        axis, and the small reduced camera
         solve runs replicated. Numerically identical to `_lm_step_schur`
         for any device count (tests/test_ba_schur.py).
 

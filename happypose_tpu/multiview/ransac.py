@@ -11,7 +11,7 @@ Parity targets:
   1-1 by sorted distance -> best hypothesis per view pair with the
   (more inliers, then lower dist sum) tie-break).
 
-TPU design (SURVEY.md §2.3 note): the ragged host-side lists become dense
+Design (SURVEY.md §2.3 note): the ragged host-side lists become dense
 fixed-shape tensors — tentative matches are a masked [P, M] table per view
 pair, seeds are jax.random index pairs, symmetric distances and inlier
 counting are batched device ops; only the final strongly-connected-component

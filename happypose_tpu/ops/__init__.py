@@ -1,5 +1,5 @@
 """Compute ops: rasterization, ROI-align, segment/group ops.
 
-The hot, TPU-optimized counterparts of the reference's torchvision /
+The hot, on-device counterparts of the reference's torchvision /
 Panda3D / C++-extension calls.
 """

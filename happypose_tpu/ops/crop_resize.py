@@ -1,8 +1,7 @@
-"""Crop+resize as separable matmuls (the TPU-fast roi_align).
+"""Crop+resize as separable matmuls (a dense form of roi_align).
 
-`roi_align` in ops/roi_align.py is gather-based — semantically exact but
-catastrophically slow on TPU (scattered gathers don't vectorize; measured
-~45 ms per 240x320 crop). Because ROI crops are axis-aligned scale+translate
+`roi_align` in ops/roi_align.py is gather-based — semantically exact, with
+scattered per-pixel gathers. Because ROI crops are axis-aligned scale+translate
 resamplings, the same bilinear sampling (torchvision aligned=False semantics,
 including the border zeroing/clamping rules and the sampling_ratio
 anti-aliasing average) is expressible as one interpolation matrix per axis:
@@ -10,8 +9,8 @@ anti-aliasing average) is expressible as one interpolation matrix per axis:
     out[b] = Ry[b] @ img[b] @ Rx[b]^T
 
 with Ry [out_h, H] / Rx [out_w, W] having <= sampling_ratio+1 nonzeros per
-row. Built densely on the VPU, applied on the MXU — ~1000x faster than the
-gather formulation at 240x320.
+row. Built densely and applied as two matrix products. Which of the two
+forms is faster on the GPU is not measured yet (ROADMAP.md S5).
 """
 
 from __future__ import annotations
@@ -61,7 +60,7 @@ def roi_align_matmul(
 
     Args:
       images: [B, C, H, W]; boxes: [B, 4] (x1, y1, x2, y2).
-      matmul_dtype: optional lower-precision dtype for the MXU passes
+      matmul_dtype: optional lower-precision dtype for the matmul passes
         (f32 accumulation); the bf16 compute path feeds bf16 CNNs, where
         resampling at ~1/256 precision is lossless downstream.
     Returns:

@@ -1,4 +1,4 @@
-"""On-chip triangle rasterizer (pure-JAX reference implementation).
+"""On-device triangle rasterizer (pure-JAX reference implementation).
 
 Replaces the reference's process-pool OpenGL renderers
 (/root/reference/happypose/toolbox/renderer/panda3d_batch_renderer.py:194-286
@@ -11,11 +11,11 @@ camera-frame normals, metric depth, and a binary mask (depth > 0) — exactly
 the channels the render-and-compare models consume.
 
 Design (two passes, both static-shape):
-  1. **Z-buffer pass** — scan over fixed-size face chunks; for each chunk
+  1. **Visibility pass** — scan over fixed-size face chunks; for each chunk
      compute edge-function coverage and affine-interpolated 1/z for every
      pixel, keep the per-pixel closest face id. This is the O(F·P) hot loop;
-     `rasterizer_pallas.py` provides the TPU-kernel version of exactly this
-     pass (same contract, interchangeable).
+     `rasterizer_triton.py` provides the GPU-kernel version of exactly this
+     pass (same face-id contract, interchangeable through `render_with`).
   2. **Shading pass** — per-pixel gather of the winning face's vertices,
      perspective-correct barycentric interpolation of color/normal, local
      shading. O(P), plain XLA.
@@ -23,12 +23,17 @@ Design (two passes, both static-shape):
 Conventions: pixel (i, j) has continuous image coordinates (u, v) = (j, i)
 at its center; a point X_cam projects to u = fx·x/z + cx, v = fy·y/z + cy.
 Two-sided rasterization (no backface culling) — mesh winding is untrusted.
+
+Precision: the geometry products (vertex and normal transforms, the light
+dot product) ask for `Precision.HIGHEST`, so a GPU never runs them in TF32;
+at a 600 px focal length TF32 would move silhouettes by a fraction of a
+pixel.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +41,7 @@ import jax.numpy as jnp
 from happypose_tpu.meshes.database import RenderAssets
 
 _Z_NEAR = 1e-3
-_INF = jnp.float32(jnp.inf)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class RenderOutput(NamedTuple):
@@ -69,7 +74,7 @@ def _face_screen_data(
     Returns (_FaceData, verts_cam [V, 3]).
     """
     R, t = TCO[:3, :3], TCO[:3, 3]
-    verts_cam = vertices @ R.T + t  # [V, 3]
+    verts_cam = jnp.matmul(vertices, R.T, precision=_HIGHEST) + t  # [V, 3]
     z = verts_cam[:, 2]
     safe_z = jnp.maximum(z, _Z_NEAR)
     u = K[0, 0] * verts_cam[:, 0] / safe_z + K[0, 2]
@@ -160,7 +165,7 @@ def shade_lambert(
     light_diffuse: float,
     lights: "jax.Array | None" = None,  # [B, 5]: dir_xyz + ambient + diffuse
 ) -> jax.Array:
-    """Lambert shading, shared by the XLA and Pallas render paths (applied
+    """Lambert shading, shared by every visibility pass (applied
     AFTER texture resolution so textured albedo shades identically to
     vertex colors).
 
@@ -176,7 +181,7 @@ def shade_lambert(
     d = lights[:, 0:3]
     d = d / jnp.maximum(jnp.linalg.norm(d, axis=-1, keepdims=True), 1e-8)
     lambert = jnp.maximum(
-        jnp.einsum("bhwc,bc->bhw", normals, d), 0.0
+        jnp.einsum("bhwc,bc->bhw", normals, d, precision=_HIGHEST), 0.0
     )
     amb = lights[:, 3][:, None, None]
     dif = lights[:, 4][:, None, None]
@@ -295,7 +300,8 @@ def _shade(
         )
 
     color = interp(colors)
-    n_cam_v = normals_obj @ TCO[:3, :3].T  # [V, 3] normals in camera frame
+    # [V, 3] normals in camera frame
+    n_cam_v = jnp.matmul(normals_obj, TCO[:3, :3].T, precision=_HIGHEST)
     n_px = interp(n_cam_v)
     n_px = n_px / jnp.maximum(jnp.linalg.norm(n_px, axis=-1, keepdims=True), 1e-8)
     # two-sided: flip normals facing away from the camera (view dir ~ -z)
@@ -310,25 +316,57 @@ def _shade(
     )
 
 
-def _render_one(
-    vertices: jax.Array,
-    faces: jax.Array,
-    faces_mask: jax.Array,
-    colors: jax.Array,
-    normals: jax.Array,
+Visibility = Callable[[_FaceData, Tuple[int, int]], jax.Array]
+
+
+def zbuffer_reference(fd: _FaceData, resolution: Tuple[int, int]) -> jax.Array:
+    """Visibility pass of the plain path: [B, H, W] face ids (-1 = none)."""
+    return jax.vmap(lambda f: _zbuffer_scan(f, resolution)[0])(fd)
+
+
+def render_with(
+    visibility: Visibility,
+    assets: RenderAssets,
+    obj_ids: jax.Array,
     TCO: jax.Array,
     K: jax.Array,
     resolution: Tuple[int, int],
-    face_chunk: int,
+    light_ambient: float,
+    light_diffuse: float,
+    lights: Optional[jax.Array],
 ) -> RenderOutput:
-    fd, verts_cam = _face_screen_data(vertices, faces, faces_mask, TCO, K)
-    face_id, _ = _zbuffer_scan(fd, resolution, chunk=face_chunk)
-    return _shade(face_id, fd, faces, verts_cam, colors, normals, TCO)
+    """Project, run `visibility` (batched face screen data -> [B, H, W]
+    face ids), then shade. Every renderer shares this body; only the
+    visibility pass differs."""
+    inst = assets.select(obj_ids)
+    # textured instances carry (u, v, 0) in their color channels and are
+    # resolved against the texture atlas after rasterization
+    uv0 = jnp.concatenate(
+        [inst.vertex_uv, jnp.zeros_like(inst.vertex_uv[..., :1])], axis=-1
+    )
+    attr_c = jnp.where(
+        inst.has_texture[:, None, None], uv0, inst.vertex_colors
+    )
+    fd, verts_cam = jax.vmap(_face_screen_data)(
+        inst.vertices, inst.faces, inst.faces_mask, TCO, K
+    )
+    face_id = visibility(fd, resolution)
+    out = jax.vmap(_shade)(
+        face_id, fd, inst.faces, verts_cam, attr_c, inst.vertex_normals, TCO
+    )
+    albedo = resolve_albedo(out.rgb, assets.textures, obj_ids, inst.has_texture)
+    rgb = shade_lambert(
+        albedo, out.normals, light_ambient, light_diffuse, lights
+    )
+    rgb = jnp.where(out.mask[..., None], rgb, 0.0)
+    return RenderOutput(
+        rgb=rgb, depth=out.depth, mask=out.mask, normals=out.normals
+    )
 
 
 @partial(
     jax.jit,
-    static_argnames=("resolution", "light_ambient", "light_diffuse", "face_chunk"),
+    static_argnames=("resolution", "light_ambient", "light_diffuse"),
 )
 def render_batch(
     assets: RenderAssets,
@@ -338,7 +376,6 @@ def render_batch(
     resolution: Tuple[int, int] = (240, 320),
     light_ambient: float = 0.6,
     light_diffuse: float = 0.6,
-    face_chunk: int = 32,
     lights: Optional[jax.Array] = None,
 ) -> RenderOutput:
     """Render B object instances, one per output image.
@@ -354,26 +391,7 @@ def render_batch(
     Returns:
       RenderOutput with [B, ...] arrays.
     """
-    inst = assets.select(obj_ids)
-    # textured instances carry (u, v, 0) in their color channels and are
-    # resolved against the texture atlas after rasterization
-    uv0 = jnp.concatenate(
-        [inst.vertex_uv, jnp.zeros_like(inst.vertex_uv[..., :1])], axis=-1
-    )
-    attr_c = jnp.where(
-        inst.has_texture[:, None, None], uv0, inst.vertex_colors
-    )
-    out = jax.vmap(
-        lambda v, f, fm, c, n, T, Kb: _render_one(
-            v, f, fm, c, n, T, Kb, resolution, face_chunk
-        )
-    )(inst.vertices, inst.faces, inst.faces_mask, attr_c,
-      inst.vertex_normals, TCO, K)
-    albedo = resolve_albedo(out.rgb, assets.textures, obj_ids, inst.has_texture)
-    rgb = shade_lambert(
-        albedo, out.normals, light_ambient, light_diffuse, lights
-    )
-    rgb = jnp.where(out.mask[..., None], rgb, 0.0)
-    return RenderOutput(
-        rgb=rgb, depth=out.depth, mask=out.mask, normals=out.normals
+    return render_with(
+        zbuffer_reference, assets, obj_ids, TCO, K, resolution,
+        light_ambient, light_diffuse, lights,
     )

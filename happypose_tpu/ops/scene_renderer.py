@@ -3,21 +3,21 @@
 The reference's scene renderer (panda3d_scene_renderer.py) rasterizes all
 objects of a scene into one frame; our batched rasterizer renders one object
 per image, so scenes composite by per-pixel nearest-depth merge — exact for
-opaque objects, fully batched, and reuses the pallas kernel unchanged.
+opaque objects, fully batched, and reuses the batched renderer unchanged.
 Used by synthetic data recording and visualization.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Tuple
+from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 
 from happypose_tpu.meshes.database import RenderAssets
-from happypose_tpu.ops.rasterizer import RenderOutput, render_batch
-from happypose_tpu.ops.rasterizer_pallas import render_batch_pallas
+from happypose_tpu.ops.rasterizer import RenderOutput
+from happypose_tpu.ops.renderers import get_renderer
 
 
 @partial(
@@ -34,7 +34,7 @@ def render_scenes(
     valid: jax.Array,  # [N]
     n_scenes: int,
     resolution: Tuple[int, int] = (240, 320),
-    renderer: str = "reference",
+    renderer: Optional[str] = None,
     light_ambient: float = 0.6,
     light_diffuse: float = 0.6,
     lights: jax.Array = None,
@@ -42,8 +42,7 @@ def render_scenes(
     """Composite per-instance renders into [n_scenes, ...] frames.
     `lights`: optional [N, 5] per-INSTANCE lighting rows (pass each
     scene's lighting repeated over its instances; see `shade_lambert`)."""
-    render = render_batch_pallas if renderer == "pallas" else render_batch
-    out = render(
+    out = get_renderer(renderer)(
         assets, obj_ids, TCO, K, resolution=resolution,
         light_ambient=light_ambient, light_diffuse=light_diffuse,
         lights=lights,

@@ -4,8 +4,8 @@ Parity target: /root/reference/happypose/toolbox/utils/distributed.py:89-153
 (`init_distributed_mode`, `get_rank`, `get_world_size`) — one NCCL process
 group per GPU, rendezvous through MASTER_ADDR/MASTER_PORT env vars.
 
-TPU-native: `jax.distributed.initialize` joins the single-program SPMD
-runtime (all collectives ride ICI/DCN; no process groups to manage). The
+Here `jax.distributed.initialize` joins the single-program SPMD runtime
+(XLA issues the collectives; no process groups to manage). The
 same env-var spelling is honored so launcher scripts carry over; on a
 single host everything no-ops gracefully.
 """
@@ -33,8 +33,8 @@ def init_distributed_mode(
 
     Defaults follow the reference's env-var convention
     (distributed.py:137-141): MASTER_ADDR/MASTER_PORT name the
-    coordinator, WORLD_SIZE/RANK the process layout. TPU pod runtimes
-    that self-configure (GKE/TPU-VM metadata) need no arguments at all.
+    coordinator, WORLD_SIZE/RANK the process layout. One process that
+    drives every GPU of its host needs none of them.
     """
     global _initialized
     if _initialized:

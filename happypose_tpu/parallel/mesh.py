@@ -1,11 +1,12 @@
 """Device-mesh construction and placement helpers.
 
-The TPU-native replacement for the reference's one-process-per-GPU NCCL
-runtime (/root/reference/happypose/toolbox/utils/distributed.py:89-153):
-a single program over a `jax.sharding.Mesh`, with data/hypothesis axes
-sharded by NamedSharding and parameters replicated. Multi-host: the same
-code runs under `jax.distributed.initialize` with a global mesh; shardings
-ride ICI within a slice and DCN across slices.
+The replacement for the reference's one-process-per-GPU NCCL runtime
+(/root/reference/happypose/toolbox/utils/distributed.py:89-153): a single
+program over a `jax.sharding.Mesh`, with data/hypothesis axes sharded by
+NamedSharding and parameters replicated. The GPUs of one host are joined
+all to all, so the mesh is a flat 1-D mesh over `jax.devices()`.
+Multi-host: the same code runs under `jax.distributed.initialize` with a
+global mesh.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ def shard_objects(db_tree, mesh: Mesh, axis: str = "dp"):
     """Shard a mesh-database pytree (RenderAssets / BatchedMeshes) over
     its leading object axis.
 
-    The TPU analog of the reference's `split_objects_across_gpus`
+    The analog of the reference's `split_objects_across_gpus`
     (train_megapose.py:115-153): the 20k-object asset store is what does
     not fit a single accelerator, so each device holds a disjoint object
     shard. Per-instance `select(obj_ids)` gathers from the owning shard —

@@ -59,8 +59,6 @@ def main(argv=None) -> int:
     )
 
     cfg_saved = json.loads((args.run_dir / "config.json").read_text())
-    on_tpu = jax.default_backend() not in ("cpu",)
-    renderer = "pallas" if on_tpu else "reference"
 
     split_batches = None
     if args.split_dir is not None:
@@ -94,7 +92,6 @@ def main(argv=None) -> int:
     cfg = PosePredictorConfig(
         backbone=cfg_saved.get("backbone", "wide_resnet18"),
         render_size=tuple(cfg_saved.get("render_size", (120, 160))),
-        renderer=renderer,
         compute_dtype="bfloat16" if cfg_saved.get("bf16") else "float32",
     )
     model = PosePredictor(cfg)
@@ -104,28 +101,19 @@ def main(argv=None) -> int:
         batch0 = make_synth_batch(
             jax.random.PRNGKey(0), assets, K1, n_objects=len(db.labels),
             batch_size=args.batch_size, resolution=(H, W),
-            renderer=renderer,
         )
     inst0 = bm.select(batch0.obj_ids)
     variables = jax.jit(model.init)(
         jax.random.PRNGKey(0), batch0.images, batch0.K, batch0.obj_ids,
         batch0.TCO_gt, assets, inst0,
     )
-    state_tmpl = {"params": variables["params"],
-                  "batch_stats": variables.get("batch_stats", {})}
     # restore only model variables from the training state
-    from flax import serialization
+    from happypose_tpu.utils.checkpoint import load_checkpoint
 
-    raw = (args.run_dir / "checkpoint.msgpack").read_bytes()
-    full = serialization.msgpack_restore(raw)
-    variables = {
-        "params": serialization.from_state_dict(
-            state_tmpl["params"], full["params"]
-        ),
-        "batch_stats": serialization.from_state_dict(
-            state_tmpl["batch_stats"], full["batch_stats"]
-        ),
-    }
+    variables, _ = load_checkpoint(args.run_dir, {
+        "params": variables["params"],
+        "batch_stats": variables.get("batch_stats", {}),
+    })
 
     grid_R = None
     if args.init_mode == "grid":
@@ -180,7 +168,6 @@ def main(argv=None) -> int:
             batch = make_synth_batch(
                 rngs[0], assets, K1, n_objects=len(db.labels),
                 batch_size=args.batch_size, resolution=(H, W),
-                renderer=renderer,
             )
         TCO_init, TCO_ref = refine(batch, rngs[1])
         gt = batch.TCO_gt
@@ -218,4 +205,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from happypose_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     raise SystemExit(main())

@@ -11,7 +11,7 @@ Parity targets (the MegaPose mesh-preparation pipeline,
   lists from stats filters -> `subset`
 
 All subcommands walk a directory of .ply/.obj meshes (recursively) and are
-renderer-agnostic: the on-chip rasterizer consumes meshes directly, so no
+renderer-agnostic: the on-device rasterizer consumes meshes directly, so no
 panda3d/urdf conversion step exists here.
 
 Usage:

@@ -1,4 +1,4 @@
-"""Record a synthetic multi-object BOP-format dataset with the on-chip
+"""Record a synthetic multi-object BOP-format dataset with the on-device
 renderer and the domain-randomized scene engine.
 
 Parity target: the reference's synthetic data generation — pybullet
@@ -190,4 +190,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from happypose_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     raise SystemExit(main())

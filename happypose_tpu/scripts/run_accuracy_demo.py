@@ -33,18 +33,13 @@ logger = get_logger(__name__)
 
 
 def _load_variables(run_dir: Path, template):
-    from flax import serialization
+    """Model variables out of a training run's saved state."""
+    from happypose_tpu.utils.checkpoint import load_checkpoint
 
-    raw = (run_dir / "checkpoint.msgpack").read_bytes()
-    full = serialization.msgpack_restore(raw)
-    return {
-        "params": serialization.from_state_dict(
-            template["params"], full["params"]
-        ),
-        "batch_stats": serialization.from_state_dict(
-            template.get("batch_stats", {}), full["batch_stats"]
-        ),
-    }
+    return load_checkpoint(run_dir, {
+        "params": template["params"],
+        "batch_stats": template.get("batch_stats", {}),
+    })[0]
 
 
 def main(argv=None) -> int:
@@ -84,8 +79,6 @@ def main(argv=None) -> int:
         make_synth_batch, make_synth_mesh_db,
     )
 
-    on_tpu = jax.default_backend() not in ("cpu",)
-    renderer = "pallas" if on_tpu else "reference"
 
     db = make_synth_mesh_db(
         args.synth_set, args.mesh_files, max_faces=args.max_faces
@@ -100,7 +93,6 @@ def main(argv=None) -> int:
         cfg = PosePredictorConfig(
             backbone=cfg_saved.get("backbone", "wide_resnet18"),
             render_size=tuple(cfg_saved.get("render_size", (120, 160))),
-            renderer=renderer,
             compute_dtype="bfloat16" if cfg_saved.get("bf16") else "float32",
             predict_pose_update=not predict_logits,
             predict_rendered_views_logits=predict_logits,
@@ -108,7 +100,7 @@ def main(argv=None) -> int:
         model = PosePredictor(cfg)
         b0 = make_synth_batch(
             jax.random.PRNGKey(0), assets, K1, n_objects=len(db.labels),
-            batch_size=2, resolution=(H, W), renderer=renderer,
+            batch_size=2, resolution=(H, W),
         )
         tmpl = jax.jit(model.init)(
             jax.random.PRNGKey(0), b0.images, b0.K, b0.obj_ids, b0.TCO_gt,
@@ -149,7 +141,7 @@ def main(argv=None) -> int:
         batch = make_synth_batch(
             jax.random.PRNGKey(args.seed + b), assets, K1,
             n_objects=len(db.labels), batch_size=args.batch_size,
-            resolution=(H, W), renderer=renderer, force_obj_ids=forced,
+            resolution=(H, W), force_obj_ids=forced,
         )
         obs = ObservationBatch(rgb=batch.images, K=batch.K)
         # gt detections: projected-point boxes (the reference's gt-detection
@@ -215,4 +207,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from happypose_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     raise SystemExit(main())

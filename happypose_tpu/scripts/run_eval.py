@@ -191,4 +191,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from happypose_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     raise SystemExit(main())

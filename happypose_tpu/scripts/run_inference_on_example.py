@@ -33,7 +33,7 @@ def make_example(example_dir: Path) -> None:
     from happypose_tpu.datasets.bop import SceneObservation, write_bop_scene
     from happypose_tpu.meshes.io import make_box_mesh, make_uv_sphere, save_ply
     from happypose_tpu.meshes.database import MeshDataBase
-    from happypose_tpu.ops.rasterizer import render_batch
+    from happypose_tpu.ops.renderers import get_renderer
 
     models = example_dir / "models"
     models.mkdir(parents=True, exist_ok=True)
@@ -58,7 +58,7 @@ def make_example(example_dir: Path) -> None:
     K[0, 2], K[1, 2] = W / 2, H / 2
     TCO = np.eye(4, dtype=np.float32)
     TCO[:3, 3] = [0.01, -0.02, 0.5]
-    out = render_batch(
+    out = get_renderer()(
         assets, jnp.asarray([1], jnp.int32), jnp.asarray(TCO)[None],
         jnp.asarray(K)[None], resolution=(H, W),
     )
@@ -131,11 +131,11 @@ def main(argv=None) -> int:
     import jax.numpy as jnp
     from PIL import Image
 
-    from happypose_tpu.ops.rasterizer import render_batch
+    from happypose_tpu.ops.renderers import get_renderer
     from happypose_tpu.visualization import make_contour_overlay, make_pose_overlay
 
     assets = obj_ds.mesh_db.render_assets()
-    render = render_batch(
+    render = get_renderer()(
         assets, jnp.asarray(obj_ids, jnp.int32), jnp.asarray(poses),
         jnp.asarray(np.tile(obs.K[None], (len(poses), 1, 1))),
         resolution=obs.rgb.shape[:2],
@@ -164,4 +164,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from happypose_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     raise SystemExit(main())

@@ -8,7 +8,7 @@ report per-view pose errors before/after fusion.
 
 Works on any BOP split whose scenes have multiple views with world-frame
 camera poses (`cam_R_w2c`); `--synthesize` first records such a dataset
-with the on-chip renderer.
+with the on-device renderer.
 
 Usage:
   python -m happypose_tpu.scripts.run_multiview_eval \
@@ -132,7 +132,7 @@ def record_dr_multiview(
     seed: int = 0,
 ) -> None:
     """Record multi-view DR scenes (shared world layout, V cameras,
-    world-fixed light) with the batched on-chip recorder; one BOP scene
+    world-fixed light) with the batched on-device recorder; one BOP scene
     dir per scene."""
     from happypose_tpu.datasets.bop import (
         BOPObjectDataset, SceneObservation, write_bop_scene,
@@ -355,4 +355,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from happypose_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     raise SystemExit(main())

@@ -3,14 +3,14 @@
 The reference generates training data offline (pybullet recording /
 BlenderProc PBR, SURVEY.md §2.7); for in-framework training smoke/bench and
 fast iteration we also provide a fully on-device generator: random object,
-random pose in the camera frustum, rendered with the on-chip rasterizer over
+random pose in the camera frustum, rendered with the on-device rasterizer over
 a randomized background. Everything is jax.random-driven and jit-safe.
 """
 
 from __future__ import annotations
 
 from functools import partial
-from typing import Tuple
+from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
@@ -18,8 +18,7 @@ import jax.numpy as jnp
 from happypose_tpu.lib3d.rotations import quat_to_rotmat
 from happypose_tpu.lib3d.transforms import make_T
 from happypose_tpu.meshes.database import RenderAssets
-from happypose_tpu.ops.rasterizer import render_batch
-from happypose_tpu.ops.rasterizer_pallas import render_batch_pallas
+from happypose_tpu.ops.renderers import get_renderer
 from happypose_tpu.training.forward_loss import PoseTrainingBatch
 
 
@@ -110,7 +109,7 @@ def make_synth_batch(
     resolution: Tuple[int, int] = (120, 160),
     z_range: Tuple[float, float] = (0.35, 0.8),
     xy_extent: float = 0.08,
-    renderer: str = "reference",
+    renderer: Optional[str] = None,
     force_obj_ids: jax.Array = None,
 ) -> PoseTrainingBatch:
     """Random single-object scenes. Returns a PoseTrainingBatch.
@@ -128,8 +127,9 @@ def make_synth_batch(
     TCO_gt = make_T(R, jnp.concatenate([xy, z], axis=-1))
     K = jnp.broadcast_to(K1, (B, 3, 3))
 
-    render = render_batch_pallas if renderer == "pallas" else render_batch
-    out = render(assets, obj_ids, TCO_gt, K, resolution=resolution)
+    out = get_renderer(renderer)(
+        assets, obj_ids, TCO_gt, K, resolution=resolution
+    )
 
     H, W = resolution
     bg = jax.random.uniform(k_bg, (B, H, W, 3), minval=0.0, maxval=1.0)

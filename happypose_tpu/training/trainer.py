@@ -3,26 +3,25 @@
 Parity target: the reference's DDP training loops
 (/root/reference/happypose/pose_estimators/megapose/training/
 train_megapose.py:96-459, cosypose/training/train_pose.py:252-520):
-one-process-per-GPU NCCL DDP with AMP. TPU-native design: a single
-`shard_map` over `Mesh(devices, ("dp",))` shards the batch, gradients are
-`pmean`ed over ICI, BatchNorm syncs through `axis_name` (the SyncBatchNorm
-analog), and bf16 compute replaces AMP GradScaler (no loss scaling needed —
-bf16 has f32's exponent range).
+one-process-per-GPU NCCL DDP with AMP. Here a single `shard_map` over
+`Mesh(devices, ("dp",))` shards the batch from one process, gradients are
+`pmean`ed across the devices, BatchNorm syncs through `axis_name` (the
+SyncBatchNorm analog), and bf16 compute replaces AMP GradScaler (no loss
+scaling needed — bf16 has f32's exponent range).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
 
-class TrainState(struct.PyTreeNode):
+class TrainState(NamedTuple):
     step: jax.Array
     params: Any
     batch_stats: Any
@@ -103,7 +102,7 @@ def make_train_step(
     `axis_name=axis` when `mesh` is given (for sync-BN).
 
     With a mesh, the step is shard_mapped: `batch` sharded over `axis`,
-    state replicated, gradients/metrics pmean'ed over ICI.
+    state replicated, gradients/metrics pmean'ed across the devices.
     """
 
     def _step(state: TrainState, batch, rng):
@@ -138,7 +137,7 @@ def make_train_step(
         metrics["loss"] = jnp.where(ok, loss, 0.0)
         metrics["grad_norm"] = jnp.where(ok, grad_norm, 0.0)
         metrics["skipped_nonfinite"] = (~ok).astype(jnp.float32)
-        new_state = state.replace(
+        new_state = state._replace(
             step=state.step + 1,
             params=new_params,
             batch_stats=new_stats,

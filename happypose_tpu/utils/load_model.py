@@ -34,61 +34,54 @@ class NamedModelSpec:
     requires_depth: bool = False
 
 
-def _renderer() -> str:
-    return "pallas" if jax.default_backend() not in ("cpu",) else "reference"
-
-
-def _default_specs() -> Dict[str, NamedModelSpec]:
-    r = _renderer()
-    return {
-        # MegaPose-style novel-object pipeline (coarse classifier + refiner)
-        "megapose-RGB": NamedModelSpec(
-            refiner_cfg=PosePredictorConfig(
-                backbone="resnet34", render_size=(240, 320),
-                render_normals=True, renderer=r,
-            ),
-            coarse_cfg=PosePredictorConfig(
-                backbone="resnet34", render_size=(240, 320),
-                render_normals=True, predict_pose_update=False,
-                predict_rendered_views_logits=True, renderer=r,
-            ),
-            inference_cfg=InferenceConfig(
-                n_refiner_iterations=5, SO3_grid_size=576,
-                n_pose_hypotheses=5,
-            ),
+# Renderers are left to the platform (`ops/renderers.py`), chosen when a
+# model renders, so building this table touches no device.
+NAMED_MODELS: Dict[str, NamedModelSpec] = {
+    # MegaPose-style novel-object pipeline (coarse classifier + refiner)
+    "megapose-RGB": NamedModelSpec(
+        refiner_cfg=PosePredictorConfig(
+            backbone="resnet34", render_size=(240, 320),
+            render_normals=True,
         ),
-        "megapose-RGB-multi-hypothesis": NamedModelSpec(
-            refiner_cfg=PosePredictorConfig(
-                backbone="resnet34", render_size=(240, 320), renderer=r,
-            ),
-            coarse_cfg=PosePredictorConfig(
-                backbone="resnet34", render_size=(240, 320),
-                predict_pose_update=False,
-                predict_rendered_views_logits=True, renderer=r,
-            ),
-            inference_cfg=InferenceConfig(
-                n_refiner_iterations=5, SO3_grid_size=576,
-                n_pose_hypotheses=5,
-            ),
+        coarse_cfg=PosePredictorConfig(
+            backbone="resnet34", render_size=(240, 320),
+            render_normals=True, predict_pose_update=False,
+            predict_rendered_views_logits=True,
         ),
-        # CosyPose-style known-object pipeline (coarse pose + refiner)
-        "cosypose-RGB": NamedModelSpec(
-            refiner_cfg=PosePredictorConfig(
-                backbone="wide_resnet34", render_size=(240, 320),
-                render_normals=False, renderer=r,
-            ),
-            coarse_cfg=PosePredictorConfig(
-                backbone="wide_resnet34", render_size=(240, 320),
-                render_normals=False, renderer=r,
-            ),
-            inference_cfg=InferenceConfig(
-                n_coarse_iterations=1, n_refiner_iterations=4,
-            ),
+        inference_cfg=InferenceConfig(
+            n_refiner_iterations=5, SO3_grid_size=576,
+            n_pose_hypotheses=5,
         ),
-    }
-
-
-NAMED_MODELS: Dict[str, NamedModelSpec] = _default_specs()
+    ),
+    "megapose-RGB-multi-hypothesis": NamedModelSpec(
+        refiner_cfg=PosePredictorConfig(
+            backbone="resnet34", render_size=(240, 320),
+        ),
+        coarse_cfg=PosePredictorConfig(
+            backbone="resnet34", render_size=(240, 320),
+            predict_pose_update=False,
+            predict_rendered_views_logits=True,
+        ),
+        inference_cfg=InferenceConfig(
+            n_refiner_iterations=5, SO3_grid_size=576,
+            n_pose_hypotheses=5,
+        ),
+    ),
+    # CosyPose-style known-object pipeline (coarse pose + refiner)
+    "cosypose-RGB": NamedModelSpec(
+        refiner_cfg=PosePredictorConfig(
+            backbone="wide_resnet34", render_size=(240, 320),
+            render_normals=False,
+        ),
+        coarse_cfg=PosePredictorConfig(
+            backbone="wide_resnet34", render_size=(240, 320),
+            render_normals=False,
+        ),
+        inference_cfg=InferenceConfig(
+            n_coarse_iterations=1, n_refiner_iterations=4,
+        ),
+),
+}
 
 
 def spec_from_checkpoints(
@@ -106,7 +99,6 @@ def spec_from_checkpoints(
         return PosePredictorConfig(
             backbone=c.get("backbone", "wide_resnet18"),
             render_size=tuple(c.get("render_size", (120, 160))),
-            renderer=_renderer(),
             compute_dtype="bfloat16" if c.get("bf16") else "float32",
             predict_pose_update=not coarse,
             predict_rendered_views_logits=coarse,
@@ -176,11 +168,9 @@ def load_detector(run_dir: Path, n_classes: int):
     (/root/reference/happypose/toolbox/inference/utils.py:61-83) — rebuild
     the model from the run's saved config and restore its weights. The run
     dir is one produced by `scripts/run_detector_training.py`
-    (checkpoint.msgpack + config.json); detector class ids must match the
+    (checkpoint.npz + config.json); detector class ids must match the
     mesh database used at training time (`--models-dir`)."""
     import json
-
-    from flax import serialization
 
     from happypose_tpu.inference.detector import Detector
     from happypose_tpu.models.detector import DetectorConfig, FCOSDetector
@@ -196,20 +186,11 @@ def load_detector(run_dir: Path, n_classes: int):
     model = FCOSDetector(
         DetectorConfig(n_classes=n_classes, fpn_channels=fpn_channels)
     )
-    raw = None
-    for name in ("checkpoint.msgpack", "checkpoint_last.msgpack"):
-        p = run_dir / name
-        if p.exists():
-            try:
-                raw = serialization.msgpack_restore(p.read_bytes())
-                break
-            except Exception:
-                continue
-    if raw is None:
-        raise FileNotFoundError(f"no readable detector checkpoint in {run_dir}")
-    variables = {"params": raw["params"]}
-    if raw.get("batch_stats"):
-        variables["batch_stats"] = raw["batch_stats"]
+    # the variable tree's structure, without computing it
+    target = jax.eval_shape(
+        model.init, jax.random.PRNGKey(0), jnp.zeros((1, 3, *image_size))
+    )
+    variables, _ = load_checkpoint(run_dir, target)
     detector = Detector(model, variables)
     detector.image_size = image_size
     return detector

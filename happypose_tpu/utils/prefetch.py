@@ -3,7 +3,7 @@
 The reference relies on torch DataLoader worker processes
 (train_megapose.py DataLoader(n_workers, persistent)); image decode (PIL)
 and tar reads release the GIL, so a thread pool + bounded queue gives the
-same overlap without process plumbing. Used to keep the TPU fed while the
+same overlap without process plumbing. Used to keep the device fed while the
 host decodes the next batches.
 """
 

@@ -2,8 +2,8 @@
 
 The reference has only manual wall/cuda-event timers
 (/root/reference/happypose/toolbox/utils/timer.py:20-55,
-megapose/training/utils.py:218-266 `CudaTimer`). On TPU we get full
-XLA-level traces for free from the jax profiler; this module packages
+megapose/training/utils.py:218-266 `CudaTimer`). The jax profiler gives
+full XLA-level device traces; this module packages
 that as (a) a context manager for scripts and (b) a tiny `annotate`
 wrapper so pipeline stages show up as named spans in the trace viewer
 (xprof / tensorboard / Perfetto all read the output directory).

@@ -2,7 +2,7 @@
 
 Parity target: /root/reference/happypose/toolbox/utils/resources.py:27-80
 (`get_cuda_memory`/`get_gpu_memory`/`get_total_memory`, `assign_gpu`) —
-mapped to the TPU runtime: device memory stats come from
+mapped to the JAX runtime: device memory stats come from
 `jax.local_devices()[i].memory_stats()`, process RSS from /proc.
 """
 

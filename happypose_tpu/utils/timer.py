@@ -2,7 +2,7 @@
 
 Parity targets: /root/reference/happypose/toolbox/utils/timer.py:20-55
 (`Timer`) and megapose/training/utils.py:218-266 (`CudaTimer`/`SimpleTimer`
-— the TPU analog synchronizes via block_until_ready)."""
+— the JAX analog synchronizes via block_until_ready)."""
 
 from __future__ import annotations
 

@@ -3,8 +3,8 @@
 Parity target: the reference's meshcat viewer
 (/root/reference/happypose/toolbox/visualization/meshcat_visualizer.py:36-120
 and meshcat_utils.py), which pushes predicted object meshes at their
-estimated poses into a browser 3D viewer over a websocket. In a zero-egress
-TPU environment there is no meshcat server; instead the same scene — every
+estimated poses into a browser 3D viewer over a websocket. Without a
+network there is no meshcat server; instead the same scene — every
 object mesh placed at its predicted camera-frame pose, plus optional camera
 frusta — is written as a standard .glb file that any glTF viewer opens.
 

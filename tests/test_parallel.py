@@ -61,7 +61,7 @@ def test_checkpoint_round_trip(tmp_path):
         np.asarray(restored["params"]["w"]), np.arange(6.0).reshape(2, 3)
     )
     # corrupt primary -> falls back to _last copy
-    (tmp_path / "checkpoint.msgpack").write_bytes(b"garbage")
+    (tmp_path / "checkpoint.npz").write_bytes(b"garbage")
     restored2, _ = load_checkpoint(tmp_path, state)
     np.testing.assert_allclose(
         np.asarray(restored2["params"]["w"]), np.arange(6.0).reshape(2, 3)

@@ -84,7 +84,7 @@ def test_matmul_crop_matches_gather():
 
 
 def test_matmul_dtype_bf16_close_to_f32():
-    """bf16 MXU crop path (the bf16-CNN feed) stays within bf16 tolerance
+    """bf16 matmul crop path (the bf16-CNN feed) stays within bf16 tolerance
     of the exact f32 resampling."""
     import jax.numpy as jnp
     from happypose_tpu.ops.crop_resize import roi_align_matmul

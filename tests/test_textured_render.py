@@ -15,7 +15,7 @@ import pytest
 from happypose_tpu.meshes.database import MeshDataBase
 from happypose_tpu.meshes.io import Mesh, load_mesh, load_obj
 from happypose_tpu.ops.rasterizer import render_batch
-from happypose_tpu.ops.rasterizer_pallas import render_batch_pallas
+from happypose_tpu.ops.rasterizer_triton import render_batch_triton
 
 REF_PLY = Path("/root/reference/tests/data/obj_000001.ply")
 
@@ -61,7 +61,7 @@ def _quad_setup():
     return assets, jnp.asarray(TCO), jnp.asarray(K), (H, W)
 
 
-@pytest.mark.parametrize("renderer", ["xla", "pallas"])
+@pytest.mark.parametrize("renderer", ["xla", "triton"])
 def test_uv_texture_sampling_analytic(renderer):
     """Rendered color must equal the analytic texture function of the hit
     point (ambient-only light -> rgb == sampled albedo)."""
@@ -71,7 +71,7 @@ def test_uv_texture_sampling_analytic(renderer):
     if renderer == "xla":
         out = render_batch(assets, ids, TCO, K, **kw)
     else:
-        out = render_batch_pallas(assets, ids, TCO, K, interpret=True, **kw)
+        out = render_batch_triton(assets, ids, TCO, K, interpret=True, **kw)
     rgb = np.asarray(out.rgb[0])
     mask = np.asarray(out.mask[0])
     assert mask.sum() > 200
@@ -170,11 +170,11 @@ class TestReferenceFixtureParity:
     def test_probes_xla(self):
         self._run(render_batch)
 
-    @pytest.mark.slow  # ~18 s; the interpret-mode kernel branches stay
-    # pinned in the default lane by tests/test_rasterizer_pallas.py
-    def test_probes_pallas(self):
+    @pytest.mark.slow  # interpret mode; the kernel stays pinned in the
+    # default lane by tests/test_rasterizer_triton.py
+    def test_probes_triton(self):
         self._run(
-            lambda *a, **k: render_batch_pallas(*a, interpret=True, **k)
+            lambda *a, **k: render_batch_triton(*a, interpret=True, **k)
         )
 
     def _run(self, render_fn):
